@@ -32,7 +32,7 @@ from .spec.constants import DEFAULT_SEARCH_RANGE
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="p64tpu",
-        description="TPU-native H.261 (p x 64) encoder/decoder")
+        description="H.261 (p x 64) encoder/decoder")
     p.add_argument("-d", "--decode", action="store_true",
                    help="decode mode (default: encode)")
     p.add_argument("-s", "--stream", required=True,

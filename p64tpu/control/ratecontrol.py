@@ -15,7 +15,7 @@ for calibration:
 
 Everything is integer arithmetic on device; the *exact* gob_bits come from
 the device bit-length model (p64tpu.entropy.lengths), so rate control runs
-inside `jit`/`lax.scan` with no host round trip (TPU-native inversion of the
+inside `jit`/`lax.scan` with no host round trip (this codec's inversion of the
 reference's stream-tell feedback).
 """
 

@@ -2,7 +2,7 @@
 
 The reference walks macroblocks with nested scalar loops (SURVEY section 3a:
 p64EncodeFrame -> per GOB -> per MB; mount empty this round, unverified).
-The TPU build instead keeps whole frames as dense arrays and reshapes them
+This codec instead keeps whole frames as dense arrays and reshapes them
 into batched block tensors once per frame:
 
   luma  (H, W)        -> (nMB, 16, 16)   raster MB order

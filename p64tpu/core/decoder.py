@@ -1,4 +1,4 @@
-"""TPU-native H.261 decoder: host VLC parse -> batched device reconstruction.
+"""H.261 decoder: host VLC parse -> batched device reconstruction.
 
 Mirror of SURVEY section 3b (p64DecodeSequence/Frame/GOB/MDU, unverified):
 the bit-serial parse happens on host (p64tpu.entropy.parse or the C++
@@ -189,12 +189,8 @@ def parse_to_tensors(data: bytes, resync: bool = False):
 
 def parse_many(datas: List[bytes]) -> List[List[ParsedFrame]]:
     """Parse multiple independent streams, fanning across a thread pool
-    (see utils.fan_map -- the ctypes C++ parse releases the GIL).
-
-    Round-3 decode benchmark: host parse was 131 ms vs 55 ms device
-    reconstruct for 16 CIF streams -- the host side is the decode
-    bottleneck at scale, exactly like encode finalize
-    (distrib.mesh.serialize_streams, same treatment)."""
+    (see utils.fan_map -- the ctypes C++ parse releases the GIL), like
+    encode finalize (distrib.mesh.serialize_streams)."""
     from ..utils import fan_map
     from ..native import load
     load()  # build/load once before fanning out

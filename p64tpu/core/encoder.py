@@ -1,4 +1,4 @@
-"""TPU-native H.261 encoder core: whole frames as tensors, fully on device.
+"""H.261 encoder core: whole frames as tensors, fully on device.
 
 Architecture (SURVEY section 7, redesigned from the reference's scalar MB
 loops -- p64.c p64EncodeSequence/Frame/GOB/MDU, unverified, mount empty):

@@ -2,7 +2,7 @@
 
 Reference behavior: per-MB prediction fetch from the old frame store with
 optional loop filtering (SURVEY section 3a; p64.c/io.c, unverified -- mount
-empty).  TPU-native: one gather per plane builds all MB predictions at once
+empty).  Here: one gather per plane builds all MB predictions at once
 from index grids; the loop filter runs as a batched 8x8 kernel on the
 selected MBs.
 
@@ -49,7 +49,7 @@ def _barrel_select(acc: jnp.ndarray, off: jnp.ndarray, bits: list,
           an MB's window is shifted by the same applied-bit prefix).
     Returns acc narrowed to `tile` along `axis`, element j = input[j + off].
 
-    TPU rationale: the previous formulation selected among 2*search+1
+    Rationale: the previous formulation selected among 2*search+1
     statically shifted copies with a sequential `where` chain -- 31 full
     passes over the candidate buffer per axis.  Decomposing the offset into
     its binary digits needs only ceil(log2(search*2+1)) conditional-slice
@@ -119,7 +119,7 @@ def _predict_mbs_barrel(plane: jnp.ndarray, mvx_mb: jnp.ndarray,
 def mc_predict(ref_y: jnp.ndarray, ref_cb: jnp.ndarray, ref_cr: jnp.ndarray,
                mv: jnp.ndarray, fil: jnp.ndarray, fmt: Format):
     """Build per-MB predictions from the reference frame (gather-free;
-    see _predict_mbs_barrel for the TPU rationale).
+    see _predict_mbs_barrel for the rationale).
 
     Args:
       ref_y / ref_cb / ref_cr: reference planes (H,W), (H/2,W/2), (H/2,W/2).

@@ -3,7 +3,7 @@
 This single implementation is used both by the encoder's local decode (the
 "encoder contains the decoder" property, SURVEY section 3a) and by the
 decoder proper, which makes encoder-side reconstruction and decoder output
-bit-identical by construction -- the TPU-native replacement for the
+bit-identical by construction -- the batched replacement for the
 reference's shared ChenIDct/dequant routines (unverified, mount empty).
 
 Uniform per-MB formula (covers coded/uncoded/intra/inter/MC/no-coeff):

@@ -2,7 +2,7 @@
 
 Reference reality: NONE -- the reference is a single-threaded scalar C
 program with no parallelism of any kind (SURVEY section 2 "parallelism
-inventory").  The TPU build's scaling story, per SURVEY/BASELINE, is:
+inventory").  This codec's scaling story, per SURVEY/BASELINE, is:
 
   * the ONLY parallel axis with an analogue in this workload is data
     parallelism over independent streams/GOPs (the frame-recursive
@@ -13,8 +13,8 @@ inventory").  The TPU build's scaling story, per SURVEY/BASELINE, is:
     through the kernels (already done in core.encoder).
 
 Implementation: `jax.sharding.Mesh` with a single "streams" axis;
-`shard_map` runs the per-shard vmapped encoder and uses `psum` over ICI for
-the aggregate rate/distortion statistics (the reference's stat.c totals).
+`shard_map` runs the per-shard vmapped encoder and uses `psum` across the
+devices for the aggregate rate/distortion statistics (the reference's stat.c totals).
 Per-shard variable-length bitstreams are serialized host-side per shard and
 concatenated -- merging bytes is host work by design (SURVEY section 7).
 Multi-host: the same code runs under `jax.distributed.initialize`; each host
@@ -117,10 +117,8 @@ def serialize_streams(cfg: enc.EncoderConfig,
 
     outputs: the sharded/batched encoder outputs (leading stream axis).
 
-    Round-3 measurement (VERDICT r2 item 10): serial finalize of 64 CIF
-    streams x 8 frames took 131 ms vs ~300 ms of device encode -- material
-    at scale.  Fanned across a thread pool (see utils.fan_map -- the
-    ctypes C++ serializer releases the GIL).
+    Fanned across a thread pool (see utils.fan_map -- the ctypes C++
+    serializer releases the GIL).
     """
     from ..entropy.encode import serialize_sequence
     from ..native import load

@@ -1,12 +1,12 @@
 """Multi-host orchestration glue (SURVEY section 5 "communication backend").
 
-The reference has no distributed anything; the TPU build's multi-host story
+The reference has no distributed anything; this codec's multi-host story
 is JAX's native runtime: `jax.distributed.initialize` + a global mesh over
 all devices, with the same shard_map program as single-host
 (p64tpu.distrib.mesh).  Per-host duties:
 
   * feed the LOCAL shard of streams (addressable devices only),
-  * run the global jitted encoder (XLA routes psum over ICI/DCN),
+  * run the global jitted encoder (XLA routes the psum between devices),
   * serialize the local shard's bitstreams on the local host,
   * exchange only scalar stats + per-stream byte lengths via
     `multihost_utils.process_allgather`; bitstream BYTES stay host-local

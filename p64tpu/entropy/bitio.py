@@ -2,7 +2,7 @@
 
 The reference streams bits one at a time through buffered stdio
 (SURVEY section 2: stream.c mputb/mputv/mgetv; mount empty this round,
-unverified).  The TPU-native build never touches bits on the serial path of
+unverified).  This codec never touches bits on the serial path of
 the encoder: device kernels emit dense symbol tensors plus exact bit
 *lengths*, and this module converts whole symbol arrays to bytes in a few
 vectorized numpy passes (`pack_symbols`).  A C++ packer/parser with the same

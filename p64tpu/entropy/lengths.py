@@ -2,7 +2,7 @@
 
 The reference learns how many bits a GOB cost by asking the stream layer
 after writing it (SURVEY section 3d: mwtell deltas feeding rate control).
-The TPU-native build inverts this: because every H.261 symbol's VLC *length*
+This codec inverts this: because every H.261 symbol's VLC *length*
 is a pure LUT function of the symbol, the exact size of the bitstream is
 computable on device, vectorized over all MBs, without materializing a
 single bit.  Rate control therefore runs inside `jit`/`lax.scan`, and the
@@ -12,13 +12,6 @@ exactly `frame_bits` bits.
 All sequential-looking dependencies of the MB layer (MBA gaps, the MVD
 predictor chain) are computed with per-GOB exclusive-cummax + gather tricks
 instead of scans, so the whole model is a handful of fused element-wise ops.
-
-Round-3 optimization record: a hand-fused Pallas kernel for
-quantize + block_bits (VMEM-resident through the whole chain) measured
-4.53 ms vs 1.27 ms for this XLA formulation on v5e (16-stream CIF, fori
-harness) -- XLA's own fusion of the pipeline is already near-optimal at
-these small 64-lane shapes, so the kernel was dropped.  Treat this module
-as at its local optimum; further encoder speed must come from elsewhere.
 """
 
 from __future__ import annotations
@@ -70,12 +63,8 @@ MTYPE_LEN = _MTYPE_LEN
 
 
 def _sel(table: np.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Gather-free small-table lookup: one-hot select-sum.
-
-    Per-element gathers run at ~150 Melem/s on the TPU VPU; a one-hot
-    compare + masked sum over a <=64-entry table is pure vector ALU work
-    and at these shapes effectively free.
-    """
+    """Gather-free small-table lookup: one-hot select-sum (a compare +
+    masked sum over a <=64-entry table is pure element-wise work)."""
     t = jnp.asarray(table, jnp.int32)
     oh = idx[..., None] == jnp.arange(t.shape[0], dtype=jnp.int32)
     return jnp.sum(jnp.where(oh, t, 0), axis=-1)
@@ -102,15 +91,14 @@ def _exclusive_cummax(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
 def _tc_len(run: jnp.ndarray, alev: jnp.ndarray) -> jnp.ndarray:
     """TCOEFF code length per coefficient, gather-free.
 
-    Semantically `TC_LEN[run, clip(alev, 0, 127)]`, but a per-element 2D
-    gather over millions of coefficients is the single slowest op on the
-    TPU VPU (~150 Melem/s measured).  Instead the small 27x16 VLC-entry
-    table is applied as a one-hot bf16 matmul (MXU) + masked select; every
-    other (run, |level|) combination is the 20-bit escape and |level| == 0
-    costs nothing.  Exact: one-hot entries and lengths <= 20 are
-    bf16-representable; accumulation is f32.  (An int8 variant A/B-measured
-    SLOWER on v5e -- 1.55 vs 1.15 ms per 16-stream step; this toolchain's
-    int8 matmul path is not faster than bf16.)
+    Semantically `TC_LEN[run, clip(alev, 0, 127)]`, computed without a
+    per-element 2D gather: the small 27x16 VLC-entry table is applied as a
+    one-hot bf16 matmul + masked select; every other (run, |level|)
+    combination is the 20-bit escape and |level| == 0 costs nothing.
+    Exact at any matmul precision: one-hot entries and lengths <= 20 are
+    bf16-representable and the f32 sums stay below 2^21.  Checked against
+    a direct gather by p64tpu.tools.parity.  (Whether a direct gather is
+    faster on the GPU is open: ROADMAP S4.)
     """
     esc = (alev > _TC_LEV_MAX) | (run > _TC_RUN_MAX)
     r = jnp.clip(run, 0, _TC_RUN_MAX)

@@ -1,7 +1,7 @@
 """H.261 bitstream parser: bytes -> dense per-picture symbol tensors.
 
 The decode parse is inherently bit-serial (SURVEY section 3b), so the
-TPU-native split is: host parses VLCs into dense per-MB tensors, device does
+split here is: host parses VLCs into dense per-MB tensors, device does
 all reconstruction math batched.  This module is the portable/oracle parser;
 p64tpu/native provides a C++ parser with the identical output contract for
 the high-throughput path.

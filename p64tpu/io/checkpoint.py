@@ -1,7 +1,7 @@
 """Per-stream checkpoint / resume.
 
 Reference reality: none -- a crashed encode restarts from frame 0 (SURVEY
-section 5).  The codec-domain analogue the TPU build implements: encoder
+section 5).  The codec-domain analogue this codec implements: encoder
 state is tiny (reconstructed reference planes + refresh counters + buffer +
 frame index), so any frame boundary is a resume point.  A checkpoint holds
 the per-stream state plus the bytes of each per-stream bitstream emitted so

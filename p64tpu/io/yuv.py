@@ -3,7 +3,7 @@ and YUV4MPEG2 (.y4m) containers.
 
 Reference behavior (SURVEY section 2: io.c MakeIob/ReadIob/WriteIob;
 unverified, mount empty): PVRG reads one file per frame per component with a
-`<prefix><n>.<suffix>` naming convention.  The TPU build loads whole
+`<prefix><n>.<suffix>` naming convention.  This codec loads whole
 sequences into (T, H, W) uint8 arrays up front (device transfer happens
 once, not per MB), and adds the two modern container formats.
 """

@@ -5,7 +5,7 @@ fixed-point rounding defines the bitstream (SURVEY section 2: chendct.c
 ChenDct/ChenIDct; the mount was empty this round, so the reference's exact
 constants/shifts could NOT be transplanted -- see SURVEY section 0).  This
 module therefore defines its *own* fully-specified integer transform with the
-same role: deterministic int32 arithmetic, identical on CPU and TPU, shared
+same role: deterministic int32 arithmetic, identical on every backend, shared
 by encoder and decoder so encoder-local reconstruction and decoder output are
 bit-identical by construction.  When the reference mount appears, only the
 constants/shifts in this file need recalibrating for cross-implementation
@@ -25,14 +25,10 @@ Definition (documented contract):
             t = rshift_round(MI^T @ F, 9)            # keeps 4 fraction bits
             f = rshift_round(t @ MI,   17)
 
-The forward was two-stage through round 2; round-3 profiling showed the
-separable formulation's minor-dim-8 matmuls/relayouts cost 2.6 of the 9.3 ms
-frame step on v5e, while the flattened (..., 64) @ (64, 64) single-stage
-form is one perfectly-shaped MXU dot (K=64, lane-concat hi/lo -> N=128)
-with zero relayouts.  Single rounding is also strictly more accurate vs the
-float oracle.  The inverse stays separable: its K=64 form would 4x the VPU
-multiply count on the CPU decode path for no TPU win (reconstruct measured
-0.9 ms), and its 4-fraction-bit intermediate is what meets IEEE 1180.
+The forward is single-stage: the flattened (..., 64) @ (64, 64) form is
+one matmul with no minor-dim-8 relayouts, and its single rounding is
+strictly more accurate vs the float oracle than a separable two-stage
+form.  The inverse stays separable (two 8x8 stages).
 
 The inverse keeps 4 fraction bits in the intermediate so that the IDCT meets
 the IEEE Std 1180-1990 statistical accuracy bounds required of H.261
@@ -94,7 +90,7 @@ from ..spec.zigzag import ZIGZAG as _ZZ  # noqa: E402  (after MI2)
 
 MI2_ZZ: np.ndarray = MI2[np.asarray(_ZZ)]
 
-#: bf16 hi/lo split of MI2 for the MXU path: MI2 = 256*hi + lo with
+#: bf16 hi/lo split of MI2 for the tensor-core path: MI2 = 256*hi + lo with
 #: hi in [-128, 128] and lo in [-128, 127] -- both bf16-exact integers.
 _MI2_HI: np.ndarray = (MI2 + 128) >> 8
 _MI2_LO: np.ndarray = MI2 - 256 * _MI2_HI
@@ -103,41 +99,30 @@ _MI2Z_HI: np.ndarray = (MI2_ZZ + 128) >> 8
 _MI2Z_LO: np.ndarray = MI2_ZZ - 256 * _MI2Z_HI
 
 
-def _fdct8x8_mxu(blocks: jnp.ndarray) -> jnp.ndarray:
-    """MXU formulation of fdct8x8, bit-identical to the int32 einsum path.
+def _fdct_flat(v: jnp.ndarray, hi: np.ndarray, lo: np.ndarray) -> jnp.ndarray:
+    """(n, 64) -> (n, 64) rounded forward DCT as ONE bf16 tensor-core dot.
 
-    ONE bf16 dot: inputs f in [-255, 255] are bf16-exact; MI2 is split
-    256*hi + lo (constants above, both bf16-exact) and the two halves are
-    lane-concatenated into a single (64, 128) rhs -- a perfect MXU tile.
-    Each f32 accumulator holds |sums| <= 64*255*128 < 2^21 (exact); the
+    Inputs f in [-255, 255] are bf16-exact; the basis is split
+    256*hi + lo (both bf16-exact) and the two halves are concatenated into
+    a single (64, 128) rhs.  Each f32 accumulator holds
+    |sums| <= 64*255*128 < 2^21 (exact at any matmul precision); the
     256*hi + lo recombination happens in int32 (full sums reach 2^25.8,
-    beyond f32's exact-integer range).  No minor-dim-8 relayouts: the
-    (..., 8, 8) -> (..., 64) flatten is layout-free.
-
-    Exactness enforced by tests/test_kernels.py::
-    test_fdct_mxu_formulation_matches_int32 and the hardware parity gate.
+    beyond f32's exact-integer range).  Bit-identical to the int32
+    definition (tests/test_kernels.py, and p64tpu.tools.parity on the
+    card), and faster than an int32 einsum on the GPU (PERF.md).
     """
-    shp = blocks.shape
-    a = blocks.reshape(-1, 64).astype(jnp.bfloat16)
-    cat = jnp.concatenate([jnp.asarray(_MI2_HI.T, jnp.bfloat16),
-                           jnp.asarray(_MI2_LO.T, jnp.bfloat16)],
-                          axis=1)                              # (64, 128)
-    s = jax.lax.dot(a, cat, preferred_element_type=jnp.float32)
+    cat = jnp.concatenate([jnp.asarray(hi.T, jnp.bfloat16),
+                           jnp.asarray(lo.T, jnp.bfloat16)], axis=1)
+    s = jax.lax.dot(v.astype(jnp.bfloat16), cat,
+                    preferred_element_type=jnp.float32)
     s2 = 256 * s[:, :64].astype(jnp.int32) + s[:, 64:].astype(jnp.int32)
-    return rshift_round(s2, FWD_SCALE_BITS).reshape(shp)
+    return rshift_round(s2, FWD_SCALE_BITS)
 
 
 def fdct8x8(blocks: jnp.ndarray) -> jnp.ndarray:
-    """Forward integer DCT over (..., 8, 8) int32 -> (..., 8, 8) int32.
-
-    TPU dispatches to the exact MXU formulation (see _fdct8x8_mxu); CPU
-    keeps the int32 matmul.  Bit-identical outputs (tested)."""
-    if jax.default_backend() == "tpu":
-        return _fdct8x8_mxu(blocks)
-    shp = blocks.shape
-    v = blocks.reshape(-1, 64).astype(jnp.int32)
-    s = jnp.einsum("nx,ux->nu", v, jnp.asarray(MI2, jnp.int32))
-    return rshift_round(s, FWD_SCALE_BITS).reshape(shp)
+    """Forward integer DCT over (..., 8, 8) int32 -> (..., 8, 8) int32."""
+    v = blocks.reshape(-1, 64)
+    return _fdct_flat(v, _MI2_HI, _MI2_LO).reshape(blocks.shape)
 
 
 def fdct8x8_zz(blocks: jnp.ndarray) -> jnp.ndarray:
@@ -146,22 +131,11 @@ def fdct8x8_zz(blocks: jnp.ndarray) -> jnp.ndarray:
     fdct8x8_zz(x)[..., k] == zigzag(fdct8x8(x))[..., k].
 
     Same arithmetic as fdct8x8 (MI2 rows permuted -- see MI2_ZZ), so the
-    transmission-order permutation costs literally nothing.  This is the
-    encoder's production entry; fdct8x8 remains for (8, 8)-layout callers
-    and tests."""
-    shp = blocks.shape[:-2]
-    if jax.default_backend() == "tpu":
-        a = blocks.reshape(-1, 64).astype(jnp.bfloat16)
-        cat = jnp.concatenate([jnp.asarray(_MI2Z_HI.T, jnp.bfloat16),
-                               jnp.asarray(_MI2Z_LO.T, jnp.bfloat16)],
-                              axis=1)                          # (64, 128)
-        s = jax.lax.dot(a, cat, preferred_element_type=jnp.float32)
-        s2 = (256 * s[:, :64].astype(jnp.int32)
-              + s[:, 64:].astype(jnp.int32))
-        return rshift_round(s2, FWD_SCALE_BITS).reshape(*shp, 64)
-    v = blocks.reshape(-1, 64).astype(jnp.int32)
-    s = jnp.einsum("nx,ux->nu", v, jnp.asarray(MI2_ZZ, jnp.int32))
-    return rshift_round(s, FWD_SCALE_BITS).reshape(*shp, 64)
+    transmission-order permutation costs nothing.  This is the encoder's
+    production entry; fdct8x8 remains for (8, 8)-layout callers and tests."""
+    v = blocks.reshape(-1, 64)
+    out = _fdct_flat(v, _MI2Z_HI, _MI2Z_LO)
+    return out.reshape(*blocks.shape[:-2], 64)
 
 
 def idct8x8(coefs: jnp.ndarray) -> jnp.ndarray:

@@ -6,12 +6,11 @@ luma MB, windows clipped so motion vectors never reference pixels outside
 the picture ([SPEC] H.261 section 3.2.1), argmin with a deterministic scan
 order defining tie-breaks.
 
-TPU-native design (SURVEY section 7 "flagship kernel"): instead of the
-reference's quadruple scalar loop, one vectorized sweep -- for each offset
-row dy, compute |cur - shift(ref, dy, dx)| summed per MB for all dx at once,
-scanning dy with `lax.scan` to bound the live intermediate to
-(2*search+1, H, W).  The result is the dense SAD tensor
-(num_offsets, nMB); argmin over the offset axis picks the winner.
+Design (SURVEY section 7 "flagship kernel"): instead of the reference's
+quadruple scalar loop, the dense SAD tensor (num_offsets, nMB) is computed
+for all macroblocks at once; argmin over the offset axis picks the winner.
+`sad_map` is the plain oracle, `sad_map_shifted` the XLA formulation and
+`me_triton.sad_map_triton` the GPU kernel; `kernels.dispatch` picks one.
 
 Documented choice contract (centralized here for recalibration once the
 reference mount appears -- a different scan order only changes *tie* cases):
@@ -45,7 +44,10 @@ def zero_offset_index(search: int = DEFAULT_SEARCH_RANGE) -> int:
     return search * side + search
 
 
-def _validity_mask(h, w, n_mb, mb_cols, search):
+def validity_mask(h: int, w: int, search: int) -> jnp.ndarray:
+    """(num_offsets, nMB) bool: the offset keeps the MB inside the picture."""
+    mb_cols = w // MB_SIZE
+    n_mb = (h // MB_SIZE) * mb_cols
     y0 = (jnp.arange(n_mb, dtype=jnp.int32) // mb_cols) * MB_SIZE
     x0 = (jnp.arange(n_mb, dtype=jnp.int32) % mb_cols) * MB_SIZE
     offs = jnp.asarray(offset_table(search))
@@ -56,37 +58,24 @@ def _validity_mask(h, w, n_mb, mb_cols, search):
 
 def sad_map_shifted(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
                     search: int = DEFAULT_SEARCH_RANGE) -> jnp.ndarray:
-    """TPU-layout-aware SAD map (production path).
-
-    The two search dimensions behave very differently on TPU: lane-axis
-    (dx) shifts force vector relayouts, sublane-axis (dy) shifts are cheap.
-    So the dx shifts are materialized ONCE as (2s+1) statically-sliced
-    copies of the padded reference (a few MB of sequential traffic), and
-    the dy sweep then works on lane-ALIGNED tensors only, as one big
-    (2s+1)-batched elementwise+reduce per dy.  ~10x faster than the
-    dynamic-slice formulation on v5e; bit-identical output (tested).
-
-    History: an earlier fully-unrolled static-slice formulation
-    (`sad_map_static`, 961 scalar-sliced abs-diff/reshape-sum passes) was
-    superseded by this MXU-pooling version and deleted in round 4 (it had
-    no caller and no test -- repo policy: no unreferenced device paths).
+    """SAD map in plain XLA (the CPU's formulation): the 2*search+1 horizontal shifts of the padded
+    reference are materialized once as static slices, then a static loop
+    over dy takes |cur - shifted| for all dx at once and box-sums it per
+    macroblock with two 0/1 pooling matmuls.  Bit-identical to sad_map.
     """
     h, w = cur_y.shape
     mb_rows, mb_cols = h // MB_SIZE, w // MB_SIZE
     n_mb = mb_rows * mb_cols
     side = 2 * search + 1
-    # bf16 is exact here: pixels and |differences| are integers <= 255
-    # (bf16 represents integers up to 256 exactly), and the box sums run on
-    # the MXU with float32 accumulation (exact below 2^24).  The CPU
-    # backend's dot thunk lacks this bf16 mode -> use f32 there (identical
-    # integer results either way).
-    dt = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    # pixels and |differences| are integers <= 255 and the box sums stay
+    # below 2^24, so f32 is exact throughout
+    dt = jnp.float32
     cur = cur_y.astype(dt)[None]                           # (1, h, w)
     ref_pad = jnp.pad(ref_y.astype(dt), search)
     # (side, h + 2s, w): lane-misaligned slicing paid once, here.
     shifted = jnp.stack([ref_pad[:, dx:dx + w] for dx in range(side)])
 
-    # 0/1 pooling matrices route the 16x16 box sums through the MXU.
+    # 0/1 pooling matrices turn the 16x16 box sums into matmuls
     pr = jnp.asarray(np.kron(np.eye(mb_rows, dtype=np.float32),
                              np.ones((1, MB_SIZE), np.float32)))  # (R, h)
     pc = jnp.asarray(np.kron(np.eye(mb_cols, dtype=np.float32),
@@ -95,19 +84,15 @@ def sad_map_shifted(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
     def one_dy(dy):
         ad = jnp.abs(cur - jax.lax.slice_in_dim(
             shifted, dy, dy + h, axis=1))                  # (side, h, w)
-        # operand order chosen so the HUGE axis (side*h) is the matmul's
-        # lane/output-N dimension -- with the pooling matrix first and
-        # N = side*h the MXU runs near-full; the naive order (N = w/16 = 22)
-        # wastes ~5/6 of every pass.
+        # 0/1 times integers <= 255: exact at any precision, TF32
+        # included; stated so that no default decides it
         part = jax.lax.dot_general(
             pc.astype(dt), ad,
             dimension_numbers=(((0,), (2,)), ((), ())),
+            precision=jax.lax.Precision.DEFAULT,
             preferred_element_type=jnp.float32)            # (C, side, h)
-        # HIGHEST precision: `part` holds integers up to 16*255 = 4080,
-        # which is NOT bf16-representable; at default TPU matmul precision
-        # the MXU rounds f32 inputs to bf16 (hardware-verified wrong in
-        # round 1).  HIGHEST splits each f32 input into hi+lo bf16 terms --
-        # exact for integers < 2^16 -- so the dot is bit-exact on the MXU.
+        # HIGHEST: `part` holds integers up to 16*255 = 4080, beyond the
+        # exact integer range of bf16 and TF32 (11 significant bits)
         sums = jax.lax.dot_general(
             part, pr, dimension_numbers=(((2,), (1,)), ((), ())),
             precision=jax.lax.Precision.HIGHEST,
@@ -118,51 +103,9 @@ def sad_map_shifted(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
     sads = jnp.stack([one_dy(dy) for dy in range(side)])   # (dy, dx, nMB)
     sads = sads.reshape(side * side, n_mb).astype(jnp.int32)
 
-    valid = _validity_mask(h, w, n_mb, mb_cols, search)
+    valid = validity_mask(h, w, search)
     big = jnp.int32(1 << 30)
     return jnp.where(valid, sads, big)
-
-
-def sad_map_i8(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
-               search: int = DEFAULT_SEARCH_RANGE) -> jnp.ndarray:
-    """int8-MXU SAD variant: |a-b| (<= 255) is split exactly into
-    lo = ad & 0x3F (6 bits) and hi = ad >> 6 (2 bits); both fit int8, so
-    the 16x16 box sums run as int8 x int8 -> int32 matmuls (the fastest
-    MXU mode) and recombine as lo + 64*hi.  Bit-identical to sad_map
-    (tested)."""
-    h, w = cur_y.shape
-    mb_rows, mb_cols = h // MB_SIZE, w // MB_SIZE
-    n_mb = mb_rows * mb_cols
-    side = 2 * search + 1
-    cur = cur_y.astype(jnp.int16)[None]
-    ref_pad = jnp.pad(ref_y.astype(jnp.int16), search)
-    shifted = jnp.stack([ref_pad[:, dx:dx + w] for dx in range(side)])
-
-    pr = jnp.asarray(np.kron(np.eye(mb_rows, dtype=np.int8),
-                             np.ones((1, MB_SIZE), np.int8)))
-    pc = jnp.asarray(np.kron(np.eye(mb_cols, dtype=np.int8),
-                             np.ones((MB_SIZE, 1), np.int8)))
-
-    def box(x_i8):
-        part = jax.lax.dot_general(
-            x_i8, pc, dimension_numbers=(((2,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        return jax.lax.dot_general(
-            pr, part, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32)          # (R, side, C)
-
-    def one_dy(dy):
-        ad = jnp.abs(cur - jax.lax.slice_in_dim(
-            shifted, dy, dy + h, axis=1))              # (side, h, w) int16
-        lo = (ad & 0x3F).astype(jnp.int8)
-        hi = (ad >> 6).astype(jnp.int8)
-        sums = box(lo) + 64 * box(hi)
-        return jnp.moveaxis(sums, 0, 1).reshape(side, n_mb)
-
-    sads = jnp.stack([one_dy(dy) for dy in range(side)])
-    sads = sads.reshape(side * side, n_mb)
-    valid = _validity_mask(h, w, n_mb, mb_cols, search)
-    return jnp.where(valid, sads, jnp.int32(1 << 30))
 
 
 def sad_map(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
@@ -196,9 +139,29 @@ def sad_map(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
     sads = jax.lax.map(row_sads, jnp.arange(-search, search + 1))
     sads = sads.reshape(side * side, n_mb)
 
-    valid = _validity_mask(h, w, n_mb, mb_cols, search)
+    valid = validity_mask(h, w, search)
     big = jnp.int32(1 << 30)
     return jnp.where(valid, sads, big)
+
+
+def sad_map_np(cur: np.ndarray, ref: np.ndarray, search: int) -> np.ndarray:
+    """int64 numpy oracle of sad_map, independent of JAX: the same
+    (num_offsets, nMB) layout and scan order, invalid offsets BIG."""
+    h, w = cur.shape
+    mbr, mbc = h // MB_SIZE, w // MB_SIZE
+    n_mb = mbr * mbc
+    c = cur.astype(np.int64)
+    rp = np.pad(ref.astype(np.int64), search)
+    out = np.full((len(offset_table(search)), n_mb), 1 << 30, np.int64)
+    y0 = (np.arange(n_mb) // mbc) * MB_SIZE
+    x0 = (np.arange(n_mb) % mbc) * MB_SIZE
+    for k, (dy, dx) in enumerate(offset_table(search)):
+        win = rp[search + dy:search + dy + h, search + dx:search + dx + w]
+        s = np.abs(c - win).reshape(mbr, MB_SIZE, mbc, MB_SIZE).sum((1, 3))
+        ok = ((y0 + dy >= 0) & (x0 + dx >= 0)
+              & (y0 + dy + MB_SIZE <= h) & (x0 + dx + MB_SIZE <= w))
+        out[k, ok] = s.reshape(n_mb)[ok]
+    return out
 
 
 def full_search(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
@@ -209,22 +172,19 @@ def full_search(cur_y: jnp.ndarray, ref_y: jnp.ndarray,
       best_sad: (nMB,) int32 SAD at mv
       sad0:     (nMB,) int32 SAD at (0, 0)
 
-    Backend dispatch: on TPU the SAD map comes from the VMEM-resident
-    Pallas kernel (kernels.me_pallas, bit-identical, ~4x faster than the
-    best XLA formulation when the reference plane is a scan carry); on CPU
-    (tests) the XLA path below.
+    The SAD map comes from the formulation `kernels.dispatch` picks for
+    the default backend.
     """
-    if jax.default_backend() == "tpu":
-        from .me_pallas import sad_map_pallas_bf16
-        sads = sad_map_pallas_bf16(cur_y, ref_y, search)
+    from .dispatch import current_sad_formulation
+    if current_sad_formulation() == "triton":
+        from .me_triton import sad_map_triton
+        sads = sad_map_triton(cur_y, ref_y, search)
     else:
         sads = sad_map_shifted(cur_y, ref_y, search)
     offs = jnp.asarray(offset_table(search))
     best_idx = jnp.argmin(sads, axis=0)
-    n_mb = sads.shape[1]
     best_sad = jnp.take_along_axis(sads, best_idx[None, :], axis=0)[0]
     sad0 = sads[zero_offset_index(search)]
     dydx = offs[best_idx]
     mv = jnp.stack([dydx[:, 1], dydx[:, 0]], axis=-1)  # (mvx, mvy)
-    del n_mb
     return mv, best_sad, sad0

@@ -48,9 +48,9 @@ def zigzag_unscan(zz: jnp.ndarray) -> jnp.ndarray:
     return flat.reshape(*zz.shape[:-1], 8, 8)
 
 
-#: magic multipliers for exact division by 2*QUANT on the VPU: the TPU has
-#: no hardware integer divide (XLA lowers `//` to a slow multi-op sequence),
-#: but x // d == (x * M[d]) >> 17 with M[d] = 2^17 // d + 1 EXACTLY for all
+#: magic multipliers for exact division by 2*QUANT without an integer
+#: divide (XLA lowers `//` to a multi-op sequence):
+#: x // d == (x * M[d]) >> 17 with M[d] = 2^17 // d + 1 EXACTLY for all
 #: x in [0, 2047], d in [1, 62] (exhaustively verified in
 #: tests/test_kernels.py::test_quantize_magic_division_domain); products
 #: stay < 2^28, int32-safe.

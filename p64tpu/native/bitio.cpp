@@ -1,8 +1,8 @@
 // Native bit-level H.261 serializer and parser.
 //
 // Role: the reference does its bit I/O one symbol at a time through stdio
-// (SURVEY section 2: stream.c/huffman.c; unverified, mount empty).  In the
-// TPU build the serial bit work is host-side by design; this C++ engine is
+// (SURVEY section 2: stream.c/huffman.c; unverified, mount empty).  Here the
+// serial bit work is host-side by design; this C++ engine is
 // the production-throughput implementation of the two host passes:
 //
 //   p64_pack_symbols  -- concatenate (code, len) arrays into bytes

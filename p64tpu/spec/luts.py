@@ -2,7 +2,7 @@
 
 The reference codes/decodes one symbol at a time through a generic Huffman
 engine (SURVEY section 2: huffman.c MakeEhuff/MakeDhuff; mount empty this
-round, unverified).  The TPU-native build instead compiles H.261's static
+round, unverified).  This codec instead compiles H.261's static
 code tables (:mod:`p64tpu.spec.tables`) into flat numpy arrays once at import
 time:
 

@@ -98,7 +98,7 @@ def kernel_probe_blocks() -> Dict[str, np.ndarray]:
 def adversarial_sequences() -> Dict[str, np.ndarray]:
     """Dict of name -> (T, H, W) uint8 luma sequences (QCIF) designed to
     surface SAD near-ties and threshold-edge decisions.  Shared by the
-    hardware parity gate (tools/tpu_parity.py) and the pinned-golden
+    device parity gate (p64tpu.tools.parity) and the pinned-golden
     regression test so they can never drift apart."""
     h, w, t = 144, 176, 5
     rng = np.random.default_rng(20260819)
@@ -127,7 +127,7 @@ def adversarial_sequences() -> Dict[str, np.ndarray]:
 
 def luma_to_frames(y: np.ndarray) -> Dict[str, np.ndarray]:
     """Derive the standard deterministic chroma for a luma sequence (the
-    same formula tpu_parity has always used)."""
+    same formula the parity gate has always used)."""
     return _chroma(y)
 
 

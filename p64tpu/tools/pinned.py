@@ -8,7 +8,7 @@ and deliberate: a change that touches decisions must regenerate the pins in
 the same commit (``python -m p64tpu.tools.pinned --write``) and say why.
 
 Covers SURVEY section 4 (b-c) until the reference mount materializes: the
-three golden_content BASELINE configs plus the four tpu_parity adversarial
+three golden_content BASELINE configs plus the four adversarial
 sequences at fixed-quant and rate-controlled settings.
 """
 

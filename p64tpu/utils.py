@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Sequence, TypeVar
+from typing import Callable, List, Mapping, Optional, Sequence, TypeVar
+
+#: root of the checkout: the package's parent directory
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _T = TypeVar("_T")
 _R = TypeVar("_R")
@@ -35,3 +38,24 @@ def expand_inputs(patterns):
         hits = sorted(_glob.glob(pat))
         paths.extend(hits if hits else [pat])
     return paths
+
+
+def compile_cache_dir(environ: Mapping[str, str] = os.environ
+                      ) -> Optional[str]:
+    """Where code must point JAX's persistent compile cache: None when
+    JAX_COMPILATION_CACHE_DIR is set (JAX reads it itself and code sets
+    nothing), else the fixed `.jax_cache/` inside the checkout (a fixed
+    path, because the path is part of the cache key)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(REPO_ROOT, ".jax_cache")
+
+
+def enable_compile_cache() -> None:
+    """Apply the one compile-cache rule (see compile_cache_dir)."""
+    path = compile_cache_dir()
+    if path is None:
+        return
+    import jax
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -1,7 +1,7 @@
 """Subprocess worker for the 2-process `jax.distributed` test (NOT collected
 by pytest -- no test_ prefix).  Each process plays one "host": it initializes
 the distributed runtime, feeds only its LOCAL shard of streams, runs the
-global sharded encoder (collectives ride Gloo on CPU, ICI/DCN on TPU pods),
+global sharded encoder (collectives ride Gloo on CPU, NCCL on GPUs),
 serializes its local bitstreams, and allgathers per-stream bit lengths.
 
 Usage: python multihost_worker.py <process_id> <num_processes> <port> \
@@ -45,13 +45,12 @@ def main() -> int:
         f"--xla_force_host_platform_device_count={local_devices}")
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("P64_JAX_CACHE", "/tmp/jaxcache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     if repo not in sys.path:
         sys.path.insert(0, repo)
+    from p64tpu.utils import enable_compile_cache
+    enable_compile_cache()
     from p64tpu.control.ratecontrol import RateConfig
     from p64tpu.core import encoder as enc
     from p64tpu.distrib import mesh as dm

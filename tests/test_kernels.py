@@ -316,7 +316,7 @@ def test_quantize_matches_plain_division():
 
 
 def test_fdct_mxu_formulation_matches_int32():
-    """The TPU MXU bf16-split fdct must equal the int32 einsum path exactly
+    """The bf16-split tensor-core fdct must equal the int32 definition exactly
     over the input domain (residuals/pixels in [-255, 255]), including
     max-amplitude checkerboard corners."""
     from p64tpu.kernels import dct as d
@@ -338,7 +338,9 @@ def test_fdct_mxu_formulation_matches_int32():
                   d.MI2.astype(np.int64))
     want = ((s + (1 << (d.FWD_SCALE_BITS - 1))) >> d.FWD_SCALE_BITS
             ).reshape(-1, 8, 8)
-    got = np.asarray(d._fdct8x8_mxu(jnp.asarray(blocks)))
+    got = np.asarray(d.fdct8x8(jnp.asarray(blocks)))
     np.testing.assert_array_equal(got, want)
-    got_cpu = np.asarray(d.fdct8x8(jnp.asarray(blocks)))
-    np.testing.assert_array_equal(got_cpu, want)
+    from p64tpu.spec.zigzag import ZIGZAG
+    got_zz = np.asarray(d.fdct8x8_zz(jnp.asarray(blocks)))
+    np.testing.assert_array_equal(got_zz,
+                                  want.reshape(-1, 64)[:, np.asarray(ZIGZAG)])

@@ -1,11 +1,10 @@
 """Benchmark breadth: all configs + stream-count scaling + decode + host
-finalize (round-2 verdict items 1, 5, 10).
+finalize.
 
 Runs bench.measure over {cif, cif_rc, cif_intra, qcif}, a stream-count
 scaling curve {4, 16, 32, 64} for the headline config, the decoder
 benchmark, and a host-finalize timing at 64 streams, then prints a markdown
-table (stderr prints progress; stdout the table) ready to paste into
-BASELINE.md.  Run in the TPU session:
+table (stderr prints progress; stdout the table).  Needs the GPU:
 
     python tools/bench_breadth.py
 """

@@ -60,10 +60,10 @@ def main() -> int:
     budget = float(sys.argv[1]) if len(sys.argv) > 1 else 300.0
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("P64_JAX_CACHE", "/tmp/jaxcache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
+
+    from p64tpu.utils import enable_compile_cache
+    enable_compile_cache()
 
     from p64tpu.control.decisions import DecisionConfig
     from p64tpu.control.ratecontrol import RateConfig
